@@ -5,8 +5,7 @@ Variant "junk" reproduces round 2's `_shadow_mask`: miss pixels traced a
 shadow ray from the WORLD ORIGIN (inside the terrain bounds) through the
 whole scene, discarded by the `& hits.hit` mask afterwards.  Variant "subst"
 is the shipped path: miss pixels get a guaranteed-miss ray whose whole line
-stays outside the root box, so sky packets leave the packet union DFS at the
-root step.
+stays outside the root box, so it ends at the root record.
 
     python benchmarks/config3_ab.py [--res 362] [--width 1920 --height 1056]
 """
@@ -33,19 +32,20 @@ def main(argv=None):
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_bench_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.3)
+    from unitysimpleraytracing.utils import compile_cache
+
+    compile_cache.enable()
 
     import jax.numpy as jnp
     import numpy as np
 
-    import unitysimpleraytracing_tpu as rt
-    from unitysimpleraytracing_tpu.core.camera import generate_rays
-    from unitysimpleraytracing_tpu.ops import trace, trace_pallas
-    from unitysimpleraytracing_tpu.ops.dispatch import (
+    import unitysimpleraytracing as rt
+    from unitysimpleraytracing.core.camera import generate_rays
+    from unitysimpleraytracing.ops import trace
+    from unitysimpleraytracing.ops.dispatch import (
         _row_major, _tile_major, camera_trace, occluded, resolve_impl,
     )
-    from unitysimpleraytracing_tpu.utils.profiling import measure
+    from unitysimpleraytracing.utils.profiling import measure
 
     mesh = rt.terrain_mesh(res=args.res, size=160.0, amplitude=20.0, seed=1)
     scene = rt.build_scene(mesh)
@@ -55,7 +55,7 @@ def main(argv=None):
         width=args.width, height=args.height, fov_deg=60.0,
     )
     tex = rt.solid_texture((0.8, 0.7, 0.6, 1.0))
-    from unitysimpleraytracing_tpu.pipeline.render import _prepared
+    from unitysimpleraytracing.pipeline.render import _prepared
 
     impl = resolve_impl("auto", bvh.capacity)
     tables = _prepared(scene, bvh, impl)
@@ -88,7 +88,7 @@ def main(argv=None):
         return rgba.reshape(h, w, 4)
 
     out = {"n_tris": scene.count, "res": f"{w}x{h}", "builder": args.builder,
-           "impl": impl, "pack": trace_pallas.auto_pack(bvh.capacity)}
+           "impl": impl}
     fa = np.asarray(frame(scene, bvh, cam, tex, tables, False))
     fb = np.asarray(frame(scene, bvh, cam, tex, tables, True))
     out["frames_equal"] = bool(np.array_equal(fa, fb))

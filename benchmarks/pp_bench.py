@@ -55,10 +55,10 @@ def main(argv=None):
     import jax.numpy as jnp
     import numpy as np
 
-    import unitysimpleraytracing_tpu as rt
-    from unitysimpleraytracing_tpu.ops import dispatch
-    from unitysimpleraytracing_tpu.parallel import pipeline_pp
-    from unitysimpleraytracing_tpu.pipeline.build import deform_scene
+    import unitysimpleraytracing as rt
+    from unitysimpleraytracing.ops import dispatch
+    from unitysimpleraytracing.parallel import pipeline_pp
+    from unitysimpleraytracing.pipeline.build import deform_scene
 
     scene = rt.build_scene(
         rt.random_triangle_soup(args.tris, seed=11, bound=6.0, tri_size=0.8)
@@ -141,10 +141,11 @@ def main(argv=None):
     t_build = timed_stage(build_stage)
     t_trace = timed_stage(trace_stage)
     model_max = max(t_build, t_trace)
-    # Stage-link payload on 2 real chips: the ppermute moves the (rays in,
-    # hits out) block between stages once per step — bytes / v5e ICI ~45 GB/s.
+    # Stage-link payload on 2 real cards: the ppermute moves the (rays in,
+    # hits out) block between stages once per step — bytes over one
+    # direction of H100 NVLink (450 GB/s, NVIDIA H100 SXM data sheet).
     link_bytes = args.rays * (6 * 4 + 4 * 4)
-    link_s = link_bytes / 45e9
+    link_s = link_bytes / 450e9
     model_speedup = (t_build + t_trace) / (model_max + link_s)
 
     # Exactness spot check (same engine both sides).

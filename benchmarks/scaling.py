@@ -12,13 +12,15 @@ host-bound and only the parity checks are meaningful — use --smoke for that.
 Usage:
     python benchmarks/scaling.py [--devices 1 2 4 8] [--tris 65536]
         [--rays 262144] [--mode strong|weak]
-        [--engine ring|gather|shuffle] [--impl auto|pallas|packet|perray]
+        [--engine ring|gather|shuffle] [--impl auto|gpu|packet|perray]
         [--smoke]
 
 Prints one JSON line per mesh size plus a summary with scaling efficiency.
-For the shuffle engine each row also reports ``exchange_fraction`` — the
-ragged all-to-all's actual exchanged volume over the ring/gather's R×S
-worst case (the skew/overlap statistic of the BASELINE north star).
+For the shuffle engine each row also reports ``overlap_fraction`` — the
+share of (ray, shard) pairs whose root boxes overlap, i.e. the rows a
+ragged exchange would send, over the R×S that the ring circulates and the
+shuffle's padded exchange moves (the skew/overlap statistic of the
+BASELINE north star).
 """
 from __future__ import annotations
 
@@ -55,13 +57,13 @@ def main(argv=None):
     ap.add_argument("--rays", type=int, default=262144)
     ap.add_argument("--mode", choices=["strong", "weak"], default="strong")
     ap.add_argument("--engine", choices=["ring", "gather", "shuffle"], default="ring")
-    ap.add_argument("--impl", choices=["auto", "pallas", "packet", "perray"],
+    ap.add_argument("--impl", choices=["auto", "gpu", "packet", "perray"],
                     default="auto", help="per-device traversal engine")
     ap.add_argument("--smoke", action="store_true",
                     help="tiny sizes + CPU platform (virtual-mesh CI check)")
     ap.add_argument("--cpu", action="store_true",
                     help="force the 8-virtual-device CPU mesh at FULL sizes "
-                    "(parity + exchange_fraction evidence; timings host-bound)")
+                    "(parity + overlap_fraction evidence; timings host-bound)")
     ap.add_argument("--out", default=None,
                     help="append result rows to this JSON-lines file")
     ap.add_argument("--reps", type=int, default=4,
@@ -81,9 +83,9 @@ def main(argv=None):
     import jax.numpy as jnp
     import numpy as np
 
-    import unitysimpleraytracing_tpu as rt
-    from unitysimpleraytracing_tpu.ops import trace
-    from unitysimpleraytracing_tpu.parallel import dist
+    import unitysimpleraytracing as rt
+    from unitysimpleraytracing.ops import trace
+    from unitysimpleraytracing.parallel import dist
 
     n_avail = len(jax.devices())
     sizes = args.devices or [d for d in (1, 2, 4, 8, 16) if d <= n_avail]
@@ -140,7 +142,7 @@ def main(argv=None):
                 base_rate = rate / ndev
             row["scaling_efficiency"] = round(rate / (base_rate * ndev), 4)
         if args.engine == "shuffle":
-            # Actual exchanged rays / the ring's R*S circulation volume.
+            # Overlapping (ray, shard) pairs / the R*S pairs.
             o_np, d_np = np.asarray(origins), np.asarray(dirs)
             rmin = np.asarray(ss.range_min)[None]  # (1, S, 3)
             rmax = np.asarray(ss.range_max)[None]
@@ -151,11 +153,11 @@ def main(argv=None):
             tmin = np.max(np.minimum(t1, t2), axis=2)
             tmax = np.min(np.maximum(t1, t2), axis=2)
             overlaps = (tmax > tmin) & (tmax > 0)
-            row["exchange_fraction"] = round(
+            row["overlap_fraction"] = round(
                 float(overlaps.sum()) / (n_rays * tp), 4
             )
         # Parity check vs single-chip traversal on a subsample: exact for the
-        # XLA engines; the Pallas kernel's fp contraction differs at ULP
+        # XLA engines; the GPU kernel's fp contraction differs at ULP
         # level (the BASELINE parity bar — identical hit masks, ULP-bounded t).
         t = np.asarray(step(ss, origins, dirs)[0])
         if ref_t is None or args.mode == "strong":
@@ -163,7 +165,7 @@ def main(argv=None):
             sub = slice(0, min(4096, n_rays))
             want = np.asarray(trace.traverse(scene, bvh, origins[sub], dirs[sub]).t)
             got = t[sub]
-            if args.impl in ("auto", "pallas"):
+            if args.impl in ("auto", "gpu"):
                 hit = want < rt.constants.MAX_FLOAT
                 ok = bool(np.array_equal(got < rt.constants.MAX_FLOAT, hit))
                 ok = ok and bool(
@@ -175,25 +177,6 @@ def main(argv=None):
         results.append(row)
         print(json.dumps(row), flush=True)
 
-    # Communication/compute model on v5e ICI (README "Scaling model"): ring
-    # circulates 60 B/ray/hop (15 f32 payload); shuffle moves only overlapped
-    # copies (60 B × exchange_fraction amortized); each hop overlaps a
-    # traversal of the local rays at the measured ~27 ns/ray.  The ratio is
-    # what decides linearity on real hardware — virtual-mesh TIMINGS here are
-    # host-bound and not evidence (platform field says which).
-    ICI_GBPS, COMPUTE_NS_PER_RAY = 45.0, 27.0
-    exch = [r["exchange_fraction"] for r in results if "exchange_fraction" in r]
-    bytes_hop = 60.0 * (sum(exch) / len(exch) if exch else 1.0)
-    model = {
-        "bytes_per_ray_per_hop": round(bytes_hop, 1),
-        "compute_ns_per_ray": COMPUTE_NS_PER_RAY,
-        "ici_gbps_per_link": ICI_GBPS,
-        "comm_compute_ratio": round(
-            (bytes_hop / (ICI_GBPS * 1e9) * 1e9) / COMPUTE_NS_PER_RAY, 4
-        ),
-        "overlap": "ppermute issued async; overlap asserted, not measured "
-                   "on this 1-chip rig",
-    }
     summary = {
         "metric": "rays_scaling_efficiency",
         "value": (
@@ -207,7 +190,6 @@ def main(argv=None):
         "platform": jax.default_backend(),
         "timings_host_bound": jax.default_backend() == "cpu",
         "parity_all": all(r.get("parity", True) for r in results),
-        "ici_model": model,
     }
     print(json.dumps(summary), flush=True)
     if args.out:

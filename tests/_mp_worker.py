@@ -27,7 +27,7 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
-from unitysimpleraytracing_tpu.parallel import multihost  # noqa: E402
+from unitysimpleraytracing.parallel import multihost  # noqa: E402
 
 try:
     ok = multihost.initialize(
@@ -55,9 +55,9 @@ import jax.numpy as jnp  # noqa: E402
 from jax.experimental import multihost_utils  # noqa: E402
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
-import unitysimpleraytracing_tpu as rt  # noqa: E402
-from unitysimpleraytracing_tpu.ops import trace  # noqa: E402
-from unitysimpleraytracing_tpu.parallel import dist  # noqa: E402
+import unitysimpleraytracing as rt  # noqa: E402
+from unitysimpleraytracing.ops import trace  # noqa: E402
+from unitysimpleraytracing.parallel import dist  # noqa: E402
 
 mesh_obj = rt.random_triangle_soup(96, seed=5, bound=4.0, tri_size=1.0)
 scene = rt.build_scene(mesh_obj)
@@ -90,7 +90,7 @@ print(f"proc {pid}: ring step exact over {nprocs} processes")
 # normalization must not depend on which triangles a host sees,
 # MeshBufferContainer.cs:9-15); the gathered per-host pieces must equal the
 # single-host ingest of the full mesh, bit for bit.
-from unitysimpleraytracing_tpu.core.mesh import MeshData  # noqa: E402
+from unitysimpleraytracing.core.mesh import MeshData  # noqa: E402
 
 n = mesh_obj.num_triangles
 lo, hi = multihost.host_shard_bounds(n, nprocs, pid)

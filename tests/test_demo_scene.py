@@ -15,8 +15,8 @@ import os
 import numpy as np
 import pytest
 
-import unitysimpleraytracing_tpu as rt
-from unitysimpleraytracing_tpu.io.png import read_png
+import unitysimpleraytracing as rt
+from unitysimpleraytracing.io.png import read_png
 
 ASSETS = "/root/reference/Assets/_Assets"
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import unitysimpleraytracing_tpu as rt
-from unitysimpleraytracing_tpu.ops import trace
-from unitysimpleraytracing_tpu.parallel import dist
+import unitysimpleraytracing as rt
+from unitysimpleraytracing.ops import trace
+from unitysimpleraytracing.parallel import dist
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices"
@@ -97,6 +97,41 @@ def test_shuffle_exchange_matches_single_device(dp, tp):
     np.testing.assert_array_equal(np.asarray(v)[hit], np.asarray(ref.v)[hit])
 
 
+@pytest.mark.parametrize("tp,seed", [(4, 0), (8, 1)])
+def test_exchange_blocks_places_every_block(tp, seed):
+    """The shuffle's exchange against a host model: src's block for dst
+    lands at dst's out_off, rows nobody writes keep the output's value."""
+    from functools import partial
+
+    from jax.sharding import PartitionSpec as P
+
+    R, C = 16, 3
+    K = tp * R
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(0, R + 1, size=(tp, tp)).astype(np.int32)
+    sizes[0, -1] = 0
+    in_off = (np.cumsum(sizes, axis=1) - sizes).astype(np.int32)
+    out_off = (np.cumsum(sizes, axis=0) - sizes).astype(np.int32)
+    op = rng.normal(size=(tp, K, C)).astype(np.float32)
+    out = np.full((tp, K, C), -1.0, np.float32)
+    want = out.copy()
+    for src in range(tp):
+        for dst in range(tp):
+            n = sizes[src, dst]
+            want[dst, out_off[src, dst]:out_off[src, dst] + n] = (
+                op[src, in_off[src, dst]:in_off[src, dst] + n]
+            )
+    mesh = dist.make_mesh(dp=1, tp=tp)
+
+    @partial(jax.shard_map, mesh=mesh, in_specs=(P("tp"),) * 5,
+             out_specs=P("tp"), check_vma=False)
+    def f(op, out, io, ss, oo):
+        return dist._exchange_blocks(op[0], out[0], io[0], ss[0], oo[0], "tp")[None]
+
+    got = f(op, out, in_off, sizes, out_off)
+    np.testing.assert_array_equal(np.asarray(got), want)
+
+
 def test_shuffle_matches_allgather_on_skewed_partition():
     """Shuffle + area-balanced (skew-split) partition stays exact."""
     scene, _, origins, dirs = _setup(n_tris=257, seed=9)
@@ -123,7 +158,7 @@ def test_ring_matches_allgather_combine():
 def test_area_balanced_partition_covers_and_balances():
     # One huge triangle + many tiny ones: area balancing isolates the hot one.
     rng = np.random.default_rng(0)
-    import unitysimpleraytracing_tpu.core.mesh as mesh_mod
+    import unitysimpleraytracing.core.mesh as mesh_mod
 
     tiny = rt.random_triangle_soup(255, seed=1, bound=5.0, tri_size=0.1)
     big = np.array([[[-50, -50, -8], [50, -50, -8], [0, 60, -8]]], np.float32)
@@ -172,16 +207,16 @@ def test_sharded_step_under_jit_with_uneven_counts():
     np.testing.assert_array_equal(np.asarray(out[0]), np.asarray(ref.t))
 
 
-@pytest.mark.parametrize("engine", ["pallas", "packet"])
+@pytest.mark.parametrize("engine", ["gpu", "packet"])
 def test_dist_engines_match_reference(engine):
     """The distributed path must run the PRODUCTION traversal engine
     (VERDICT r1 weak #4): parity of both combine strategies with
-    impl='pallas' (interpret-mode kernel inside shard_map) and 'packet'.
+    impl='gpu' (interpret-mode kernel inside shard_map) and 'packet'.
 
     The packet engine shares the XLA substrate with the reference engine →
-    bit-exact t.  The Pallas kernel's fp contraction differs at ULP level
-    (the BASELINE parity bar: identical hit masks/ids, ULP-bounded t — same
-    tolerance as tests/test_trace_pallas.py)."""
+    bit-exact t.  The kernel's fp contraction differs at ULP level (the
+    BASELINE parity bar: identical hit masks/ids, ULP-bounded t — same
+    tolerance as tests/test_trace_gpu.py)."""
     scene, bvh, origins, dirs = _setup(n_tris=220, n_rays=512)
     ref = trace.traverse(scene, bvh, origins, dirs)
     mesh = dist.make_mesh(dp=2, tp=4)
@@ -217,7 +252,7 @@ def test_graft_entry_dryrun():
 
 
 def test_multihost_helpers_single_process():
-    from unitysimpleraytracing_tpu.parallel import multihost
+    from unitysimpleraytracing.parallel import multihost
 
     assert multihost.initialize(num_processes=1) is False
     mesh = multihost.make_host_mesh(tp_per_host=4)

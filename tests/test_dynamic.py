@@ -3,8 +3,8 @@ beyond the reference (BASELINE.json configs 3-4)."""
 import jax.numpy as jnp
 import numpy as np
 
-import unitysimpleraytracing_tpu as rt
-from unitysimpleraytracing_tpu.ops import trace
+import unitysimpleraytracing as rt
+from unitysimpleraytracing.ops import trace
 
 
 def _rays(n, seed, bound=8.0):
@@ -48,7 +48,7 @@ def test_refit_matches_fresh_refit_of_same_topology():
 
 def _two_plane_scene():
     """A small occluder plane above a large floor, light from (1,1,1)."""
-    import unitysimpleraytracing_tpu.core.mesh as mesh_mod
+    import unitysimpleraytracing.core.mesh as mesh_mod
 
     floor = np.array(
         [
@@ -158,10 +158,10 @@ def test_chunked_frame_and_shadows_match_single_kernel_path():
 
 
 def test_chunked_builder_and_rows_variants_bit_identical():
-    """builder="karras" (override), the traced-build fallback and a rows=4
-    packet-height override must all produce the unrouted default's results:
-    same fold over the same per-chunk candidates (rows only re-tiles the
-    packet; the traced build differs only in table PADDING, which is inert)."""
+    """builder="karras" (override), the traced-build fallback and the routed
+    ray order must all produce the unrouted default's results: same fold
+    over the same per-chunk candidates (routing only reorders the rays; the
+    traced build differs only in table PADDING, which is inert)."""
     import jax
 
     mesh = rt.random_triangle_soup(3000, seed=31, bound=9.0, tri_size=0.8)
@@ -171,10 +171,10 @@ def test_chunked_builder_and_rows_variants_bit_identical():
     ref_c = rt.build_bvh_chunked(scene, chunk_capacity=1024, builder="karras")
     ref = rt.trace_chunked(ref_c, o, d, route=False)
 
-    # rows=4 packets over the same (karras) tables: bit-identical.
-    rows4 = rt.trace_chunked(ref_c, o, d, route=False, rows=4)
-    np.testing.assert_array_equal(np.asarray(rows4.t), np.asarray(ref.t))
-    np.testing.assert_array_equal(np.asarray(rows4.tri), np.asarray(ref.tri))
+    # Routed rays over the same (karras) tables: bit-identical.
+    routed = rt.trace_chunked(ref_c, o, d, route=True)
+    np.testing.assert_array_equal(np.asarray(routed.t), np.asarray(ref.t))
+    np.testing.assert_array_equal(np.asarray(routed.tri), np.asarray(ref.tri))
 
     # Traced build (inside a caller's jit → worst-case table bound, karras):
     # same hits as the host-built karras chunks.
@@ -234,7 +234,7 @@ def test_animated_renderer_fused_matches_unfused():
     keeps repacks bit-consistent across frames."""
     import jax.numpy as jnp
 
-    from unitysimpleraytracing_tpu.pipeline.build import deform_scene, refit_bvh
+    from unitysimpleraytracing.pipeline.build import deform_scene, refit_bvh
 
     mesh = rt.terrain_mesh(res=16, size=16.0, amplitude=3.0, seed=1)
     scene = rt.build_scene(mesh)
@@ -259,13 +259,30 @@ def test_animated_renderer_fused_matches_unfused():
 
 
 def test_chunked_capacity_contract():
-    """An oversized chunk_capacity must raise a typed error at BUILD time —
-    the table would blow the VMEM budget only at trace time with an opaque
-    Mosaic scoped-vmem OOM (observed at 524288-tri chunks on v5e)."""
+    """An oversized chunk must raise a typed error at BUILD time: the record
+    metas hold 21-bit ids, so packing refuses before any device work."""
+    import jax.numpy as jnp
     import pytest
 
-    from unitysimpleraytracing_tpu.pipeline import chunked as chunked_mod
+    from unitysimpleraytracing.ops import dispatch, trace_gpu
 
-    with pytest.raises(ValueError, match="VMEM"):
-        chunked_mod._check_chunk_records(300000, 524288)
-    chunked_mod._check_chunk_records(150000, 163840)  # the default passes
+    with pytest.raises(dispatch.CapacityError, match="21 bits"):
+        trace_gpu.check_capacity(trace_gpu.MAX_IDS)
+    from unitysimpleraytracing.pipeline import chunked
+
+    # The default chunk, padded to the partition's lane multiple, passes.
+    trace_gpu.check_capacity(rt.constants.pad_count(
+        chunked.DEFAULT_CHUNK_CAPACITY, rt.constants.LANE))
+    cap = trace_gpu.MAX_IDS
+    z1 = jnp.zeros((cap,), jnp.int32)
+    zb = jnp.zeros((cap,), bool)
+    z3 = jnp.zeros((cap, 3), jnp.float32)
+    bvh = rt.Bvh(
+        left=z1, right=z1, left_is_leaf=zb, right_is_leaf=zb,
+        internal_parent=z1, leaf_parent=z1, range_first=z1, range_last=z1,
+        split_axis=z1, node_aabb_min=z3, node_aabb_max=z3, sorted_tri=z1,
+        depth=z1, count=cap,
+    )
+    scene = rt.build_scene(rt.cube_mesh(size=1.0))
+    with pytest.raises(dispatch.CapacityError):
+        trace_gpu.pack_tables(scene, bvh)

@@ -8,8 +8,8 @@ import os
 import numpy as np
 import pytest
 
-import unitysimpleraytracing_tpu as rt
-from unitysimpleraytracing_tpu.io.png import read_png
+import unitysimpleraytracing as rt
+from unitysimpleraytracing.io.png import read_png
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -57,7 +57,7 @@ def test_golden_real_mesh_chunked_with_shadows():
     obj = "/root/reference/Assets/_Assets/male_head.obj"
     if not os.path.exists(obj):
         pytest.skip("reference assets unavailable")
-    from unitysimpleraytracing_tpu.pipeline.chunked import render_frame_chunked
+    from unitysimpleraytracing.pipeline.chunked import render_frame_chunked
 
     mesh = rt.subdivide_mesh(rt.load_obj(obj), levels=2, displace=0.08)
     assert mesh.num_triangles == 101824

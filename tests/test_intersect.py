@@ -3,8 +3,8 @@ _debugRayBoxIntersectionTester pattern, applied exhaustively)."""
 import jax.numpy as jnp
 import numpy as np
 
-from unitysimpleraytracing_tpu.ops import intersect
-from unitysimpleraytracing_tpu.utils import reference_impl
+from unitysimpleraytracing.ops import intersect
+from unitysimpleraytracing.utils import reference_impl
 
 
 def test_ray_box_random():

@@ -3,11 +3,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from unitysimpleraytracing_tpu import build_bvh, build_scene, random_triangle_soup
-from unitysimpleraytracing_tpu.ops import lbvh
-from unitysimpleraytracing_tpu.ops.sort import sort_key_val
-from unitysimpleraytracing_tpu.ops.unique import distribute_keys
-from unitysimpleraytracing_tpu.utils import reference_impl, validate
+from unitysimpleraytracing import build_bvh, build_scene, random_triangle_soup
+from unitysimpleraytracing.ops import lbvh
+from unitysimpleraytracing.ops.sort import sort_key_val
+from unitysimpleraytracing.ops.unique import distribute_keys
+from unitysimpleraytracing.utils import reference_impl, validate
 
 
 def _unique_sorted_keys(n, seed):

@@ -1,7 +1,7 @@
 """Morton encoding vs a scalar transcription of MeshBufferContainer.cs:32-50."""
 import numpy as np
 
-from unitysimpleraytracing_tpu.core import morton
+from unitysimpleraytracing.core import morton
 
 
 def expand_bits_scalar(v: int) -> int:

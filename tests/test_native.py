@@ -4,8 +4,8 @@ import os
 import numpy as np
 import pytest
 
-from unitysimpleraytracing_tpu import native
-from unitysimpleraytracing_tpu.core import mesh
+from unitysimpleraytracing import native
+from unitysimpleraytracing.core import mesh
 
 OBJS = [
     "/root/reference/Assets/_Assets/Diagoanl object.obj",
@@ -59,8 +59,8 @@ def test_native_missing_file_raises():
 def test_native_png_unfilter_matches_pure(tmp_path):
     """C++ PNG unfilter (native/image.cpp) is bit-identical to the Python
     loops across all filter types (the reference texture uses 1-4)."""
-    import unitysimpleraytracing_tpu.native as N
-    from unitysimpleraytracing_tpu.io import png as P
+    import unitysimpleraytracing.native as N
+    from unitysimpleraytracing.io import png as P
 
     src = "/root/reference/Assets/_Assets/viking_room.png"
     if not os.path.exists(src):

@@ -11,10 +11,10 @@ import os
 import numpy as np
 import pytest
 
-import unitysimpleraytracing_tpu as rt
-from unitysimpleraytracing_tpu.cli import _resize_nearest, orbit_eyes
-from unitysimpleraytracing_tpu.io.png import read_png
-from unitysimpleraytracing_tpu.ops import trace_pallas
+import unitysimpleraytracing as rt
+from unitysimpleraytracing.cli import _resize_nearest, orbit_eyes
+from unitysimpleraytracing.io.png import read_png
+from unitysimpleraytracing.ops import trace_gpu
 
 ASSETS = "/root/reference/Assets/_Assets"
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
@@ -64,9 +64,9 @@ def test_orbit_over_background_image_goldens():
     assert np.mean(np.abs(frames[0].astype(int) - frames[1].astype(int))) > 2.0
 
     # Frame-invariant tables: both frames must have reused ONE packed table
-    # (the Awake/Update split — packing costs ~4 ms/frame at 65K tris).
-    t1 = trace_pallas.prepare_tables(scene, bvh)
-    t2 = trace_pallas.prepare_tables(scene, bvh)
+    # (the Awake/Update split).
+    t1 = trace_gpu.prepare_tables(scene, bvh)
+    t2 = trace_gpu.prepare_tables(scene, bvh)
     assert t1 is t2
 
     # Background visibly shows through on miss pixels (alpha-lerp compose):
@@ -82,13 +82,13 @@ def test_cli_orbit_end_to_end(tmp_path):
         "v -1 0 -3\nv 1 0 -3\nv 0 1.2 -3\nv -1 -1.2 -3\nv 1 -1.4 -3\nv 0 0 -3\n"
         "f 1 2 3\nf 4 5 6\n"
     )
-    from unitysimpleraytracing_tpu.io.png import write_png
+    from unitysimpleraytracing.io.png import write_png
 
     plate = (np.linspace(0, 255, 32 * 24 * 3) % 256).astype(np.uint8).reshape(24, 32, 3)
     bg = tmp_path / "bg.png"
     write_png(str(bg), plate)
 
-    from unitysimpleraytracing_tpu import cli
+    from unitysimpleraytracing import cli
 
     out = tmp_path / "frame.png"
     cli.main([

@@ -4,7 +4,7 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from unitysimpleraytracing_tpu import (
+from unitysimpleraytracing import (
     build_bvh,
     build_scene,
     cube_mesh,
@@ -16,9 +16,9 @@ from unitysimpleraytracing_tpu import (
     solid_texture,
     texture_from_array,
 )
-from unitysimpleraytracing_tpu.core.camera import generate_rays
-from unitysimpleraytracing_tpu.core.texture import sample_bilinear
-from unitysimpleraytracing_tpu.io.png import read_png, write_png
+from unitysimpleraytracing.core.camera import generate_rays
+from unitysimpleraytracing.core.texture import sample_bilinear
+from unitysimpleraytracing.io.png import read_png, write_png
 
 
 def _cube_setup(w=64, h=48):
@@ -84,7 +84,7 @@ def test_png_roundtrip(tmp_path):
 
 
 def test_png_pure_decoder_matches_pil(tmp_path):
-    from unitysimpleraytracing_tpu.io.png import _read_png_pure
+    from unitysimpleraytracing.io.png import _read_png_pure
 
     rng = np.random.default_rng(1)
     img = rng.integers(0, 256, size=(16, 24, 4), dtype=np.uint8)
@@ -99,7 +99,7 @@ def test_bilinear_sampling_interpolates():
     img[0, 1] = [1, 0, 0, 1]
     img[1, 0] = [0, 1, 0, 1]
     img[1, 1] = [1, 1, 0, 1]
-    from unitysimpleraytracing_tpu.core.texture import Texture
+    from unitysimpleraytracing.core.texture import Texture
 
     tex = Texture(data=jnp.asarray(img))
     # Sample dead center: average of all four texels.
@@ -119,27 +119,25 @@ def test_frame_to_image_flips_rows():
 
 
 def test_capacity_contract_raises_typed_error(monkeypatch):
-    """The library path must never silently fall off the VMEM cliff on TPU:
-    auto above the single-kernel bound raises CapacityError pointing at the
-    chunked path (the reference's analog: a hard, explicit 524 288 capacity,
-    Constants.cs:3-6).  Explicit impl='packet' remains available."""
+    """The library path must never silently fall back to a slower engine on
+    a GPU: auto at the GPU engine's id bound raises CapacityError pointing
+    at the chunked path (the reference's analog: a hard, explicit 524 288
+    capacity, Constants.cs:3-6).  Explicit engines remain available."""
     import pytest
 
-    from unitysimpleraytracing_tpu.ops import dispatch
+    from unitysimpleraytracing.ops import dispatch, trace_gpu
 
-    monkeypatch.setattr(dispatch.jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(dispatch.jax, "default_backend", lambda: "gpu")
+    cap = trace_gpu.MAX_IDS
     with pytest.raises(dispatch.CapacityError, match="chunked"):
-        dispatch.resolve_impl("auto", 700_000)
-    assert dispatch.resolve_impl("auto", 65_000) == "pallas4"
-    assert dispatch.resolve_impl("auto", 590_000) == "pallas"
-    assert dispatch.resolve_impl("packet", 700_000) == "packet"
+        dispatch.resolve_impl("auto", cap)
+    assert dispatch.resolve_impl("auto", 65_000) == "gpu"
+    assert dispatch.resolve_impl("auto", cap - 1) == "gpu"
+    assert dispatch.resolve_impl("packet", cap) == "packet"
 
     # render_frame surfaces the same typed error before any device work.
-    import flax.struct
+    import unitysimpleraytracing as rt
 
-    import unitysimpleraytracing_tpu as rt
-
-    cap = 700_000
     z1 = jnp.zeros((cap,), jnp.int32)
     zb = jnp.zeros((cap,), bool)
     z3 = jnp.zeros((cap, 3), jnp.float32)
@@ -160,7 +158,7 @@ def test_subdivide_mesh_watertight_and_counts():
     """Midpoint subdivision: 4x triangles per level, linear uv/normal
     interpolation, and the displacement field is a pure function of position
     (shared corners displace identically — no cracks)."""
-    import unitysimpleraytracing_tpu as rt
+    import unitysimpleraytracing as rt
 
     base = rt.cube_mesh(size=2.0)
     s1 = rt.subdivide_mesh(base, levels=1)

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import unitysimpleraytracing_tpu as rt
-from unitysimpleraytracing_tpu.ops import dispatch, trace
-from unitysimpleraytracing_tpu.parallel import pipeline_pp
-from unitysimpleraytracing_tpu.pipeline.build import deform_scene
+import unitysimpleraytracing as rt
+from unitysimpleraytracing.ops import dispatch, trace
+from unitysimpleraytracing.parallel import pipeline_pp
+from unitysimpleraytracing.pipeline.build import deform_scene
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 2, reason="needs 2 devices"

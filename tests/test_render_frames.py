@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import unitysimpleraytracing_tpu as rt
+import unitysimpleraytracing as rt
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,7 @@
 """Failure-detection/recovery helpers (utils/resilience)."""
 import pytest
 
-from unitysimpleraytracing_tpu.utils import resilience
+from unitysimpleraytracing.utils import resilience
 
 
 def test_healthcheck_on_cpu():
@@ -35,7 +35,7 @@ def test_with_retry_propagates_non_transient():
 
 def test_with_retry_exhausts():
     def always():
-        raise RuntimeError("DEADLINE_EXCEEDED: tunnel stall")
+        raise RuntimeError("DEADLINE_EXCEEDED: device stall")
 
     with pytest.raises(RuntimeError):
         resilience.with_retry(always, retries=1, backoff_s=0.01)

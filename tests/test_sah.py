@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from unitysimpleraytracing_tpu import (
+from unitysimpleraytracing import (
     build_bvh,
     build_scene,
     random_triangle_soup,
     terrain_mesh,
 )
-from unitysimpleraytracing_tpu.ops import sah, trace, trace_pallas4
-from unitysimpleraytracing_tpu.utils import validate
+from unitysimpleraytracing.ops import sah, trace, trace_gpu
+from unitysimpleraytracing.utils import validate
 
 
 def _random_rays(n, seed, bound=60.0):
@@ -97,9 +97,7 @@ def test_sah_bvh4_kernel_parity_interpret():
     bvh = build_bvh(scene, builder="sah")
     origins, dirs = _random_rays(1024, seed=2, bound=8.0)
     want = trace.traverse(scene, bvh, origins, dirs)
-    got = trace_pallas4.traverse_packets_pallas4(
-        scene, bvh, origins, dirs, interpret=True
-    )
+    got = trace_gpu.traverse(scene, bvh, origins, dirs, interpret=True)
     np.testing.assert_array_equal(np.asarray(got.tri), np.asarray(want.tri))
     np.testing.assert_allclose(
         np.asarray(got.t), np.asarray(want.t), rtol=4e-6, atol=0
@@ -137,9 +135,7 @@ def test_sah_free_bvh4_kernel_parity_interpret():
     bvh = build_bvh(scene, builder="sah_free")
     origins, dirs = _random_rays(1024, seed=2, bound=8.0)
     want = trace.traverse(scene, bvh, origins, dirs)
-    got = trace_pallas4.traverse_packets_pallas4(
-        scene, bvh, origins, dirs, interpret=True
-    )
+    got = trace_gpu.traverse(scene, bvh, origins, dirs, interpret=True)
     np.testing.assert_array_equal(np.asarray(got.tri), np.asarray(want.tri))
     np.testing.assert_allclose(
         np.asarray(got.t), np.asarray(want.t), rtol=4e-6, atol=0
@@ -149,16 +145,16 @@ def test_sah_free_bvh4_kernel_parity_interpret():
 def test_sah_free_chunked_parity():
     # builder="sah_free" through the chunked path: same hits as the
     # restricted-sweep chunk trees (topology changes, the hit contract not).
-    from unitysimpleraytracing_tpu.pipeline import chunked
+    from unitysimpleraytracing.pipeline import chunked
 
     scene = build_scene(
         random_triangle_soup(3000, seed=3, bound=20.0, tri_size=1.0)
     )
     cb_sah = chunked.build_bvh_chunked(
-        scene, chunk_capacity=1024, builder="sah", record_format="bvh2"
+        scene, chunk_capacity=1024, builder="sah"
     )
     cb_free = chunked.build_bvh_chunked(
-        scene, chunk_capacity=1024, builder="sah_free", record_format="bvh2"
+        scene, chunk_capacity=1024, builder="sah_free"
     )
     rng = np.random.default_rng(0)
     o = jnp.asarray(rng.uniform(-25, 25, (512, 3)).astype(np.float32))
@@ -174,7 +170,7 @@ def test_sah_traced_count():
     # Ragged-shard usage: capacity-padded arrays, count a traced scalar.
     mesh = random_triangle_soup(90, seed=7)
     scene = build_scene(mesh)
-    from unitysimpleraytracing_tpu.ops.sort import sort_key_val
+    from unitysimpleraytracing.ops.sort import sort_key_val
 
     _, sorted_tri = sort_key_val(scene.morton, scene.tri_index)
 
@@ -204,7 +200,7 @@ def test_sah_traced_count():
 def test_sah_median_fallback_terminates_and_stays_valid():
     mesh = random_triangle_soup(200, seed=11)
     scene = build_scene(mesh)
-    from unitysimpleraytracing_tpu.ops.sort import sort_key_val
+    from unitysimpleraytracing.ops.sort import sort_key_val
 
     _, sorted_tri = sort_key_val(scene.morton, scene.tri_index)
     bvh = sah.build_bvh_sah_from_sorted(

@@ -4,11 +4,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from unitysimpleraytracing_tpu import constants as C
-from unitysimpleraytracing_tpu.ops import sort
-from unitysimpleraytracing_tpu.utils import validate
+from unitysimpleraytracing import constants as C
+from unitysimpleraytracing.ops import sort
+from unitysimpleraytracing.utils import validate
 
-IMPLS = ["xla", "packed", "lex2", "radix", "pallas"]
+IMPLS = ["xla", "packed", "lex2", "radix"]
 
 
 def _random_kv(n, seed=0, key_bits=32):
@@ -66,7 +66,7 @@ def test_argsort_by_key():
     np.testing.assert_array_equal(perm, np.argsort(keys, kind="stable"))
 
 
-@pytest.mark.parametrize("impl", ["radix", "pallas"])
+@pytest.mark.parametrize("impl", ["radix"])
 def test_per_pass_validation_clean(impl):
     """validate_sort_per_pass drives every digit pass standalone and checks
     the reference's in-situ per-pass invariants (ComputeBufferSorter.cs:
@@ -113,7 +113,7 @@ def test_per_pass_validation_catches_corruption():
         validate.check_pass_stable(np.asarray(k), np.asarray(v), np.asarray(ko), bad_vals, 0)
 
 
-@pytest.mark.parametrize("impl", ["radix", "pallas"])
+@pytest.mark.parametrize("impl", ["radix"])
 def test_per_pass_validation_padded_sizes(impl):
     """Capacity-padded scene arrays are not block multiples (e.g. 7168 with
     SORT_BLOCK=4096) — the per-pass validator pads with tail-sorting max

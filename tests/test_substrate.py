@@ -4,11 +4,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from unitysimpleraytracing_tpu import build_bvh, build_scene, cube_mesh
-from unitysimpleraytracing_tpu.core.buffer import DataBuffer
-from unitysimpleraytracing_tpu.io.checkpoint import load_checkpoint, save_checkpoint
-from unitysimpleraytracing_tpu.ops import registry
-from unitysimpleraytracing_tpu.utils import debug, profiling
+from unitysimpleraytracing import build_bvh, build_scene, cube_mesh
+from unitysimpleraytracing.core.buffer import DataBuffer
+from unitysimpleraytracing.io.checkpoint import load_checkpoint, save_checkpoint
+from unitysimpleraytracing.ops import registry
+from unitysimpleraytracing.utils import debug, profiling
 
 
 def test_databuffer_fill_and_roundtrip():
@@ -36,11 +36,9 @@ def test_databuffer_shape_guard():
 
 
 def test_registry_lists_builtin_engines():
-    assert registry.engines("sort") == ["pallas", "radix", "xla"]
-    assert registry.engines("traverse") == [
-        "packet", "pallas", "pallas4", "perray"
-    ]
-    assert "pallas" in registry.engines("scan")
+    assert registry.engines("sort") == ["radix", "xla"]
+    assert registry.engines("traverse") == ["gpu", "packet", "perray"]
+    assert registry.engines("scan") == ["xla"]
     assert registry.engines("topology") == ["karras", "sah"]
     with pytest.raises(KeyError):
         registry.get("sort", "nope")
@@ -51,7 +49,7 @@ def test_registry_sort_engines_agree():
     k = jnp.asarray(rng.integers(0, 1 << 30, size=2048).astype(np.uint32))
     v = jnp.arange(2048, dtype=jnp.int32)
     want = registry.get("sort", "xla")(k, v)
-    for name in ("radix", "pallas"):
+    for name in ("radix",):
         got = registry.get("sort", name)(k, v)
         np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(want[0]))
         np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(want[1]))
@@ -69,7 +67,7 @@ def test_checkpoint_roundtrip(tmp_path):
         np.asarray(bvh2.node_aabb_min), np.asarray(bvh.node_aabb_min)
     )
     # Restored BVH renders identically.
-    from unitysimpleraytracing_tpu import make_camera, render_hits
+    from unitysimpleraytracing import make_camera, render_hits
 
     cam = make_camera(eye=(3, 2.5, 4), target=(0, 0, 0), width=32, height=32)
     a = render_hits(scene, bvh, cam)
@@ -90,16 +88,18 @@ def test_profiler_report_and_roofline():
         pass
     rep = prof.report()
     assert "noop" in rep and "GB/s" in rep
-    s = profiling.OpStats("x", seconds=1.0, bytes_accessed=819_000_000_000)
-    assert abs(s.roofline_fraction(peak_gbytes_s=819.0) - 1.0) < 1e-6
+    s = profiling.OpStats("x", seconds=1.0, bytes_accessed=3_350_000_000_000)
+    peaks = profiling.device_peaks("NVIDIA H100 80GB HBM3")
+    frac = s.roofline_fraction(peaks["hbm_gbytes_s"], peaks["f32_gflops"])
+    assert abs(frac - 1.0) < 1e-6
     assert profiling.sort_bytes(1 << 20) == 4 * 16 * (1 << 20)
 
 
 def test_chunked_checkpoint_roundtrip(tmp_path):
     """ChunkedBvh persistence: restore must trace bit-identically to the
     in-memory build (tables, per-chunk trees and the shard map all carried)."""
-    import unitysimpleraytracing_tpu as rt
-    from unitysimpleraytracing_tpu.io.checkpoint import (
+    import unitysimpleraytracing as rt
+    from unitysimpleraytracing.io.checkpoint import (
         load_chunked_checkpoint, save_chunked_checkpoint,
     )
 

@@ -1,12 +1,12 @@
-"""Traversal parity: vectorized TPU traversal vs brute force and vs the exact
+"""Traversal parity: vectorized XLA traversal vs brute force and vs the exact
 scalar DFS replica (including tie-breaking on shared-edge hits)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from unitysimpleraytracing_tpu import build_bvh, build_scene, cube_mesh, random_triangle_soup
-from unitysimpleraytracing_tpu.ops import trace
-from unitysimpleraytracing_tpu.utils import reference_impl
+from unitysimpleraytracing import build_bvh, build_scene, cube_mesh, random_triangle_soup
+from unitysimpleraytracing.ops import trace
+from unitysimpleraytracing.utils import reference_impl
 
 
 def _random_rays(n, seed, bound=60.0):

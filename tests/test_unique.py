@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from unitysimpleraytracing_tpu.ops.unique import distribute_keys
-from unitysimpleraytracing_tpu.utils import validate
+from unitysimpleraytracing.ops.unique import distribute_keys
+from unitysimpleraytracing.utils import validate
 
 
 def distribute_keys_scalar(keys: np.ndarray, n: int) -> np.ndarray:

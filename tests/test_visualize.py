@@ -1,8 +1,8 @@
 """Gizmo AABB wireframe overlay (the RaytracingMeshDrawer.cs:92-116 analog)."""
 import numpy as np
 
-import unitysimpleraytracing_tpu as rt
-from unitysimpleraytracing_tpu.utils import visualize
+import unitysimpleraytracing as rt
+from unitysimpleraytracing.utils import visualize
 
 
 def test_aabb_overlay_draws_green_edges():
